@@ -5,8 +5,7 @@ state, keeping each hop's first DFT vector (test/test.c:69-83).  On an
 accelerator, dispatching one program per hop prices every hop at device
 round-trip latency; this example streams the same protocol through
 ``Streamer.run_hopped``, which groups blocks into ONE compiled program per
-chain (api.roundtrip_hopped: a lax.scan over the group) — the shape that
-runs the full 8-second test.wav in ~2 s wall on a hosted TPU.
+chain (api.roundtrip_hopped: a lax.scan over the group).
 
 Verifies the protocol contract as it goes: the chained hop spectra equal a
 per-block reference path at 1e-12, and the synthesized stream reconstructs
@@ -26,15 +25,10 @@ import jax
 
 if os.environ.get("JAX_PLATFORMS"):
     jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-# a true f64 contract check needs x64; TPUs have no f64 unit (the plan's
-# float64 resolves to f32 there), so only CPU backends get the flag and
-# the tolerance below calibrates to what actually ran — the same policy
-# as the CLI parity mode
-try:
-    if jax.default_backend() == "cpu":
-        jax.config.update("jax_enable_x64", True)
-except Exception:
-    pass
+# a true f64 contract check needs x64 (the CPU and the GPU both compute in
+# f64) — the same policy as the CLI parity mode; the tolerance below
+# calibrates to what actually ran
+jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 
@@ -62,9 +56,9 @@ def main(dftsize=256, hop=32):
 
     # contract check vs the per-block path (one dispatch per block) — at
     # the class of what actually ran: 1e-12 when the f64 plan really
-    # computed in f64 (CPU x64); the f32 structural-difference class when
-    # the backend has no f64 (TPU), where the chained and per-block
-    # programs tile differently and agree to ~1e-8
+    # computed in f64; the f32 structural-difference class otherwise, where
+    # the chained and per-block programs tile differently and agree to
+    # ~1e-8
     want = []
     st = init_state(plan)
     for blk in iter_blocks(x, block):

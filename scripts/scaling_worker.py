@@ -1,5 +1,5 @@
 """Worker for the CPU strong-scaling proxy measurement (BASELINE.md
-scaling target; VERDICT r4 missing #2).
+scaling target).
 
 Modes (argv[1]):
   single <out_file> <m> <block>

@@ -19,37 +19,30 @@ echo "== build native oracle =="
 make -C sdft_tpu/native
 
 echo "== unit + parity tests =="
-python -m pytest tests/ -x -q
+python -m pytest tests/ -x -q -m "not gpu"
 
 echo "== cross-implementation check ($DFTSIZE $HOPSIZE $WINDOW $LATENCY) =="
 python scripts/crosscheck.py "$DFTSIZE" "$HOPSIZE" "$WINDOW" "$LATENCY" "$WAV" $PLOT
 
-# On-hardware tier: when a TPU is attached, run the f32 parity gates and the
-# accelerator crosscheck on the actual chip (never concurrently with another
-# TPU process).  Skip with SKIP_TPU=1.
-if [ "${SKIP_TPU:-0}" != "1" ] && python - <<'EOF'
-import sys
-try:
-    import jax
-    sys.exit(0 if jax.default_backend() == "tpu" else 1)
-except Exception:
-    sys.exit(1)
-EOF
+# On-card tier: when a GPU is attached, run the f32 parity gates, the
+# on-card crosscheck (f64 parity mode and the f32 fast path) and the smoke
+# test on the card.  Skip with SKIP_GPU=1.
+if [ "${SKIP_GPU:-0}" != "1" ] && python -c 'import sys, jax; sys.exit(0 if jax.default_backend() == "gpu" else 1)' 2>/dev/null
 then
-  echo "== on-TPU parity gates =="
-  SDFT_TEST_TPU=1 python -m pytest tests -m tpu -q
-  echo "== on-TPU crosscheck ($DFTSIZE $HOPSIZE $WINDOW $LATENCY, f32) =="
-  SDFT_CROSSCHECK_BACKEND=tpu python scripts/crosscheck.py \
+  echo "== on-GPU parity gates =="
+  SDFT_TEST_GPU=1 python -m pytest tests/test_gpu.py -q
+  echo "== on-GPU crosscheck ($DFTSIZE $HOPSIZE $WINDOW $LATENCY, f64) =="
+  SDFT_CROSSCHECK_BACKEND=gpu python scripts/crosscheck.py \
       "$DFTSIZE" "$HOPSIZE" "$WINDOW" "$LATENCY" "$WAV"
-  # f32 error-model gates across the dftsize range (model + measurements
-  # documented in scripts/crosscheck.py); the canonical m=1000 ran above
-  for M in 512 4096; do
-    echo "== on-TPU crosscheck ($M $HOPSIZE $WINDOW $LATENCY, f32) =="
-    SDFT_CROSSCHECK_BACKEND=tpu python scripts/crosscheck.py \
-        "$M" "$HOPSIZE" "$WINDOW" "$LATENCY" "$WAV"
+  for M in 512 1000 4096; do
+    echo "== on-GPU crosscheck ($M $HOPSIZE $WINDOW $LATENCY, f32) =="
+    SDFT_CROSSCHECK_BACKEND=gpu SDFT_CROSSCHECK_FD=32 \
+        python scripts/crosscheck.py "$M" "$HOPSIZE" "$WINDOW" "$LATENCY" "$WAV"
   done
+  echo "== smoke test on the card =="
+  python chip_smoke.py
 else
-  echo "== no TPU attached; skipping on-hardware tier =="
+  echo "== no GPU attached; skipping the on-card tier =="
 fi
 
 echo "== examples =="

@@ -1,4 +1,4 @@
-"""sdft_tpu — a TPU-native sliding-DFT framework.
+"""sdft_tpu — a sliding-DFT framework in JAX for NVIDIA GPUs.
 
 A from-scratch JAX/XLA/Pallas implementation of the modulated Sliding
 Discrete Fourier Transform (Duda 2010; Bradford/Dobson/ffitch 2005) with the

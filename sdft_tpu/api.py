@@ -11,8 +11,8 @@ here channels vmap and shard for free).  ``plan`` is static: the first call
 per (plan, shape) pair compiles, later calls hit the jit cache.
 
 Spectra cross jit boundaries in the packed real layout (trailing axis 2 =
-re/im; see sdft_tpu.cplx) because this TPU runtime cannot materialize or
-transfer complex buffers.  Use ``cplx.to_complex`` on host to get numpy
+re/im; see sdft_tpu.cplx), which every backend can materialize and
+transfer.  Use ``cplx.to_complex`` on host to get numpy
 complex matrices, or the compat.SDFT class which does it for you.
 """
 
@@ -25,7 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .cplx import from_complex, pack, unpack
-from .kernels import forward_block_pallas, pallas_supported, plan_supported
+from .kernels import forward_block_pallas, use_kernel
 from .ops.analysis import refresh_state, sdft_block
 from .ops.lti import (roundtrip_block_lti, roundtrip_hopped_chain,
                       sdft_hopped as _sdft_hopped_1d)
@@ -63,10 +63,6 @@ def _sdft_2d_pallas(plan: Plan, state: State, samples: jax.Array, layout: str,
     )(state, samples)
 
 
-def _use_pallas(plan: Plan, M: int, out_dtype: str | None = None) -> bool:
-    return pallas_supported() and plan_supported(plan, M, out_dtype)
-
-
 @functools.partial(jax.jit, static_argnums=0)
 def _isdft(plan: Plan, dfts: jax.Array):
     return isdft_block(plan, dfts)
@@ -81,10 +77,10 @@ def sdft(plan: Plan, state: State, samples, layout: str = "packed",
       state: carry from ``init_state`` (batched iff samples are batched).
       samples: (M,) or (C, M) real samples.
       layout: "packed" (default) returns dfts with a trailing re/im axis of
-        size 2; "planar" returns a (re, im) pair of real arrays — the TPU
-        kernel's native output, saving one full read+write of the spectra
-        (at m=4096 the spectra are ~32 kB per input sample, so that pass is
-        the dominant cost).  Use planar for magnitude/spectrogram pipelines.
+        size 2; "planar" returns a (re, im) pair of real arrays, which
+        spectrogram consumers read without de-interleaving (at m=4096 the
+        spectra are ~32 kB per input sample, so their write is the
+        dominant cost).  Use planar for magnitude/spectrogram pipelines.
       spectra_dtype: optional narrower element type for the emitted planes
         (planar only), e.g. "bfloat16" — halves the O(M*m) spectra write,
         the forward path's HBM roofline.  The scan itself stays in the
@@ -114,12 +110,12 @@ def sdft(plan: Plan, state: State, samples, layout: str = "packed",
                              f"got {samples.shape}")
         return sdft_block_df(plan, state, samples)
     if samples.ndim == 1:
-        if _use_pallas(plan, samples.shape[-1], spectra_dtype):
+        if use_kernel(plan, samples.size):
             return forward_block_pallas(plan, state, samples, layout=layout,
                                         out_dtype=spectra_dtype)
         return _sdft_1d(plan, state, samples, layout, spectra_dtype)
     if samples.ndim == 2:
-        if _use_pallas(plan, samples.shape[-1], spectra_dtype):
+        if use_kernel(plan, samples.size):
             return _sdft_2d_pallas(plan, state, samples, layout, spectra_dtype)
         return _sdft_2d(plan, state, samples, layout, spectra_dtype)
     raise ValueError(f"samples must be (M,) or (C, M), got {samples.shape}")
@@ -144,9 +140,9 @@ def roundtrip(plan: Plan, state: State, samples, transform=None
     """sdft -> [transform ->] isdft round trip of one block.
 
     Without a transform the chain is linear time-invariant and collapses to
-    its LTI form (see sdft_tpu.ops.lti): three MXU matmuls + a tiny carry
-    scan, spectra never materialized — ~20x the throughput of running
-    ``sdft`` then ``isdft``.  The returned state is identical to ``sdft``'s,
+    its LTI form (see sdft_tpu.ops.lti): three matrix products + a tiny carry
+    scan, spectra never materialized — far cheaper than running ``sdft``
+    then ``isdft``.  The returned state is identical to ``sdft``'s,
     so the two forms interleave freely on one stream.  Multi-channel batches
     fold into the matmul row dims (one GEMM, not C batched small ones —
     ops.lti.roundtrip_block_lti).
@@ -185,10 +181,9 @@ def roundtrip_hopped(plan: Plan, state: State, blocks, hop: int,
     stack of blocks in ONE compiled program (one dispatch, one fetch).
 
     The fast path for the reference's hop-chunked streaming usage
-    (test/test.c:69-83).  See ops.lti.roundtrip_hopped_chain.  On TPU
-    backends hop == 1 runs ONE fused Pallas launch per block (spectra +
-    synthesis; the spectra carry the in-kernel mxu2 cumsum class, ~7e-6
-    relative worst-case — ops.lti._chain_hop1_pallas_jit).
+    (test/test.c:69-83).  See ops.lti.roundtrip_hopped_chain.  hop == 1
+    runs the stepped fused XLA body (ops.lti._chain_fused_jit) on every
+    backend.
 
     Args:
       plan: static plan.
@@ -252,7 +247,7 @@ def refresh(plan: Plan, state: State) -> State:
     The comb stage telescopes, so the accumulator is — in exact arithmetic —
     a pure function of (offset, delayline); recomputing it discards the f32
     rounding error the running sum accumulates over endless streams.  Two
-    real MXU matvecs (re/im); see ops.analysis.refresh_state.  Run every `refresh_every`
+    real matvecs (re/im); see ops.analysis.refresh_state.  Run every `refresh_every`
     blocks via Streamer, or call directly at any block boundary.
     """
     if state.offset.ndim == 0:
@@ -344,18 +339,18 @@ def sdft_power(plan: Plan, state: State, samples,
     the spectrogram fast path.
 
     The full-rate complex spectra write is the forward path's roofline
-    (docs/PERF.md); magnitude/spectrogram consumers discard the phase, so
+    (PERF.md); magnitude/spectrogram consumers discard the phase, so
     emitting one |.|^2 plane halves that write (``spectra_dtype="bfloat16"``
     halves it again — power is consumed logarithmically, where bf16's ~3
-    decimal digits are transparent).  On TPU the squaring happens inside
-    the fused kernel at the store; elsewhere it is the XLA composition.
+    decimal digits are transparent).  On the GPU the squaring happens inside
+    the spectra kernel at the store; on the CPU it is the XLA composition.
 
     Returns (new_state, power) with power (M, m) / (C, M, m) real.
     """
     samples = jnp.asarray(samples)
     if samples.ndim not in (1, 2):
         raise ValueError(f"samples must be (M,) or (C, M), got {samples.shape}")
-    if _use_pallas(plan, samples.shape[-1], spectra_dtype):
+    if use_kernel(plan, samples.size):
         from .kernels import forward_block_power
 
         if samples.ndim == 1:

@@ -4,7 +4,7 @@ Reference surface (python/src/sdft/sdft.py:25-145): ``SDFT(dftsize, window,
 latency)`` with methods ``sdft``, ``isdft``, ``reset`` and attributes
 ``size``, ``window``, ``latency``.  A user of ``sdft.SDFT`` can switch to
 ``sdft_tpu.SDFT`` unchanged; compute runs through the jitted JAX ops on
-whatever backend is active (TPU or CPU), and NumPy arrays come back.
+whatever backend is active (GPU or CPU), and NumPy arrays come back.
 """
 
 from __future__ import annotations

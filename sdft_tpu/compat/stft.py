@@ -6,7 +6,7 @@ README.md:121-129 uses it for the side-by-side spectrogram proof).  Same API
 here: ``STFT(framesize, hopsize, dftsize, window, shift)`` with ``stft`` /
 ``istft``, symmetric and asymmetric windows, WOLA synthesis, optional
 circular shift.  Framing/overlap-add are expressed as gather/scatter-add so
-the whole pipeline jits on TPU.
+the whole pipeline jits.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def _frame_fft(samples, framesize, hopsize, shift, window):
     if shift:
         frames = jnp.fft.fftshift(frames, axes=-1)
     dfts = jnp.fft.rfft(frames, axis=-1, norm="forward")
-    # packed at the jit boundary (no complex buffers on this TPU runtime)
+    # packed at the jit boundary (sdft_tpu.cplx)
     return jnp.stack([jnp.real(dfts), jnp.imag(dfts)], axis=-1)
 
 

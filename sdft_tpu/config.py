@@ -1,4 +1,4 @@
-"""Precision configuration for the TPU SDFT framework.
+"""Precision configuration for the SDFT framework.
 
 The reference keeps time-domain (TD) and frequency-domain (FD) precision
 independently configurable (reference: c/src/sdft/sdft.h:21-37 ``SDFT_TD_*`` /
@@ -6,10 +6,10 @@ independently configurable (reference: c/src/sdft/sdft.h:21-37 ``SDFT_TD_*`` /
 We mirror that with a small frozen dataclass that is hashable, so it can ride
 along as a static argument under ``jax.jit``.
 
-On TPU, float64 is software-emulated and only available when ``jax_enable_x64``
-is on.  ``resolve()`` canonicalizes the requested dtypes against the current
-JAX x64 setting so the library degrades gracefully instead of tracing dtypes
-that the backend will silently downcast.
+float64 is only available when ``jax_enable_x64`` is on.  ``resolve()``
+canonicalizes the requested dtypes against the current JAX x64 setting so
+the library degrades gracefully instead of tracing dtypes that JAX will
+silently downcast.
 """
 
 from __future__ import annotations
@@ -22,9 +22,9 @@ import numpy as np
 
 _REAL_DTYPES = ("float32", "float64")
 #: FD-only extended tier: double-word float32 pairs (ops.twofloat) — the
-#: TPU-native analogue of the reference's `long double` FD tier
-#: (c/src/sdft/sdft.h:21-37): ~2^-48 relative spectra accuracy on hardware
-#: with no float64 unit.
+#: analogue of the reference's `long double` FD tier
+#: (c/src/sdft/sdft.h:21-37): ~2^-48 relative spectra accuracy from float32
+#: arithmetic alone.
 _FD_DTYPES = _REAL_DTYPES + ("float32x2",)
 
 
@@ -46,25 +46,27 @@ class Precision:
           double-word extended tier (ops.twofloat): api.sdft computes
           f64-class spectra from float32 pairs on any backend, and
           api.isdft synthesizes correctly-rounded samples from them —
-          the TPU answer to the reference's `long double` FD tier; other
+          the analogue of the reference's `long double` FD tier; other
           entry points (roundtrip, sdft_power, ...) treat it as float32.
     """
 
     td: str = "float32"
     fd: str = "float64"
-    #: MXU accumulation mode for float32 contractions: "highest" is exact
-    #: f32 (6 bf16 passes on TPU); "high" is the 3-pass bf16 split (~2x the
-    #: GEMM throughput).  Measured on the v5e (scripts/exp_prec.py, m=1000,
-    #: reference test.wav): "high" DFT max error ~1.1e-6 — it does NOT meet
-    #: the reference 1e-7 comparator gate, and per-block refresh cannot heal
-    #: it (the rounding is intra-block GEMM error, not carry drift).  Use it
-    #: only for accuracy-tolerant spectrogram/monitoring workloads; "highest"
-    #: (the default) passes the gate.  "split4" (collapsed round trip only)
-    #: splits BOTH operands into masked bf16 hi+lo halves and takes all four
-    #: cross products — the exact product of the split operands, ~16-17
-    #: mantissa bits at 4/6 the HIGHEST pass count — for throughput-first
-    #: streaming where the synthesized-sample tolerance (~1e-4 class)
-    #: matters rather than the 1e-7 spectra gate.  Ignored for f64.
+    #: Accumulation mode for float32 contractions (lax.Precision of every
+    #: f32 dot): "highest" (the default) is true f32 — on the H100 the dot
+    #: runs on the f32 units, never in TF32 — and is what the reference
+    #: 1e-7 comparator gate is held to.  "high" lets XLA use a faster
+    #: reduced-precision algorithm (on the H100, TF32 tensor cores or a
+    #: bf16 split, at XLA's choice); its error is a matrix-product rounding
+    #: inside each block that the accumulator refresh cannot heal, so it is
+    #: for accuracy-tolerant spectrogram/monitoring work only.  "split4"
+    #: (collapsed round trip only) splits BOTH operands into masked bf16
+    #: hi+lo halves and takes all four cross products on the bf16 tensor
+    #: cores — the exact product of the split operands, ~16-17 mantissa
+    #: bits — for throughput-first streaming where the synthesized-sample
+    #: tolerance (~1e-4 class) matters rather than the 1e-7 spectra gate.
+    #: The error of each mode on the GPU is not measured yet.  Ignored for
+    #: f64.
     mxu: str = "highest"
 
     def __post_init__(self):
@@ -98,13 +100,12 @@ class Precision:
 
     @property
     def mxu_precision(self):
-        """lax.Precision for f32 MXU contractions (f64 dots are unaffected
-        by this on CPU; f64 is not a TPU dtype).
+        """lax.Precision for f32 contractions (f64 dots ignore it).
 
         "split4" maps to HIGHEST here: only the collapsed round trip
         implements the 4-pass split-operand scheme; every other contraction
         (hopped analysis, sharded programs, refresh) falls back to exact
-        f32 rather than silently degrading to the 3-pass "high" class.
+        f32 rather than silently degrading to the "high" class.
         """
         from jax import lax
 
@@ -129,5 +130,5 @@ class Precision:
 #: Reference-parity default: float TD, double FD (c/src/sdft/sdft.h:101-118).
 DEFAULT_PRECISION = Precision(td="float32", fd="float64")
 
-#: TPU fast path: everything in float32 / complex64.
+#: Fast path: everything in float32 / complex64.
 FAST_PRECISION = Precision(td="float32", fd="float32")

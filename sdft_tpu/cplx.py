@@ -1,11 +1,12 @@
 """Packed-complex boundary layout.
 
-The TPU runtime in this environment cannot materialize complex buffers at
-jit boundaries or transfer them device<->host (complex *inside* a compiled
-program is fine — XLA decomposes it).  The framework therefore uses a packed
-layout at every jit/program boundary: a real array with a trailing axis of
-size 2 holding (real, imag), in the plan's FD real dtype.  Pallas kernels
-use the same planar convention (Pallas has no complex dtypes at all).
+The framework keeps complex values out of jit/program boundaries (complex
+*inside* a compiled program is fine — XLA decomposes it): every boundary
+uses a packed layout, a real array with a trailing axis of size 2 holding
+(real, imag), in the plan's FD real dtype.  This was first forced by an
+accelerator runtime that could not transfer complex buffers; it stays as
+the one boundary layout every backend handles.  The Pallas kernel uses the
+same convention (Pallas has no complex dtypes at all).
 
 Helpers here convert between the packed layout and complex arrays, on device
 (inside jit) and on host (numpy).

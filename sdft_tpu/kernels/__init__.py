@@ -1,17 +1,19 @@
-from .analysis_pallas import (
-    forward_and_y_pallas,
+"""Hand-written kernels: per-sample spectra on Hopper GPUs (Pallas/Triton)."""
+
+from .spectra_triton import (
+    KernelConfig,
     forward_block_pallas,
     forward_block_power,
-    pallas_supported,
+    kernel_platform,
     plan_supported,
-    roundtrip_block_fused,
+    use_kernel,
 )
 
 __all__ = [
+    "KernelConfig",
     "forward_block_pallas",
     "forward_block_power",
-    "roundtrip_block_fused",
-    "forward_and_y_pallas",
-    "pallas_supported",
+    "kernel_platform",
     "plan_supported",
+    "use_kernel",
 ]

@@ -1,4 +1,4 @@
-// sdft_native: C++ oracle engine for the TPU SDFT framework.
+// sdft_native: C++ oracle engine for the SDFT framework.
 //
 // Role: the "native component" tier mirroring the reference's C/C++ header
 // cores (reference: c/src/sdft/sdft.h, cpp/src/sdft/sdft.h) — a golden

@@ -15,7 +15,7 @@ property, README.md:20), a block of M samples becomes:
     acc[k, i] = carry + inclusive-cumsum_k(rot)        associative scan
     aux[k, i] = acc[k, i] * conj(T_i^((offset+k+1) mod 2m))
 
-which is the TPU-native form: one O(M*m) elementwise stage, one prefix sum
+which is the data-parallel form: one O(M*m) elementwise stage, one prefix sum
 along time, one elementwise demodulation — all fusible, shardable along both
 time (scan carry = m complex numbers) and bins (independent except the
 window's 1-2 bin halo).  This mirrors reference Python's vectorization
@@ -110,18 +110,18 @@ def refresh_state(plan: Plan, state: State) -> State:
     older than the window cancel only to roundoff, so after B blocks the
     accumulator carries O(sqrt(B) * eps) of dead error.  Recomputing it with
     exact integer-exponent phasors (sdft_tpu.ops.twiddle) resets that error
-    to a single windowed-sum rounding — the TPU-native generalization of the
+    to a single windowed-sum rounding — the block-parallel generalization of the
     reference's periodic phase reset (c/src/sdft/sdft.h:566-576) from the
     phasor to the accumulator itself, making f32 endless streams drift-free
     (SURVEY.md §7 hard part (b)).
 
-    Cost: one (2m,) x (2m, m) MXU matvec — run every `refresh_every` blocks
+    Cost: one (2m,) x (2m, m) matvec — run every `refresh_every` blocks
     (see stream.Streamer); the refreshed state is a drop-in continuation.
     """
     m = plan.dftsize
     P, _ = fiddle_block(plan, state.offset.astype(jnp.int32), 2 * m)
     d = state.delayline.astype(plan.precision.fd_dtype)
-    # real input x complex phasors = two real MXU matvecs
+    # real input x complex phasors = two real matvecs
     acc_re = jnp.matmul(d, jnp.real(P), precision=lax.Precision.HIGHEST)
     acc_im = jnp.matmul(d, jnp.imag(P), precision=lax.Precision.HIGHEST)
     acc = jnp.stack([acc_re, acc_im], axis=-1)

@@ -6,7 +6,7 @@ Hermitian edge guards, the window's bin convolution and the synthesis
 reduction (c/src/sdft/sdft.h:562-657) are all *linear* in the accumulator,
 so the order of the time prefix-sum and the bin contraction can be swapped.
 Writing a block of M samples as nt tiles of K (u = per-tile scan state in
-the tile-demodulated frame, as in kernels/analysis_pallas.py):
+the tile-demodulated frame, as in kernels/spectra_triton.py):
 
     y[k] = sum_j  P[k,j] * u_re[k,j] + Q[k,j] * u_im[k,j]
     u    = cumsum_k(delta[k] * fine[k,j]) + acc_tile * conj(row0)
@@ -21,16 +21,16 @@ fine[k,j] = T_j^k.  Substituting and exchanging sums:
 where G, P, Q, fine are *plan constants*.  The accumulator evolution across
 tiles batches too: per-tile totals are one (nt,K)@(K,m) matmul, the carry
 recurrence is a length-nt cumsum of rotated totals.  The entire round trip
-becomes three MXU matmuls + O(nt*m) elementwise work — the O(M*m) VPU
-elementwise scan pipeline disappears.  This is the TPU-first answer to the
-reference's hot loop: all FLOPs ride the systolic array.
+becomes three matrix products + O(nt*m) elementwise work — the O(M*m)
+elementwise scan pipeline disappears, and the reference's hot loop becomes
+matrix-unit work.
 
 Exactness: phases still come from integer exponents mod 2m
 (sdft_tpu.ops.twiddle), the carried State is bit-identical in meaning to the
 scan path's, and the output equals the sdft_block+isdft_block composition up
 to floating-point reassociation (gated by tests against the XLA path and the
 native oracle).  Works for every window, any latency, ROI plans, f32 and
-f64, on TPU and CPU.
+f64, on the GPU and the CPU.
 """
 
 from __future__ import annotations
@@ -54,12 +54,10 @@ K_TILE = 128
 def default_k_tile(M: int) -> int:
     """Pick the tile length for a block of M samples.
 
-    Measured on a v5e at m=4096 (scripts/exp_block.py): XLA falls off a
-    3-4x performance cliff whenever the tile count nt = ceil(M/K) equals
-    128 — (16384,128), (32768,256) and (65536,512) all cost ~0.24-0.30
-    ms/block while their nt=64/nt=256 neighbors cost 0.05-0.12 ms.  Away
-    from the cliff, nt=256 wins for blocks >= 32k samples (the VPU
-    elementwise work per tile amortizes best) and nt=64 wins below.
+    Tuned on the previous accelerator at m=4096, where XLA slowed sharply
+    whenever the tile count nt = ceil(M/K) equaled 128: nt=256 for blocks
+    >= 32k samples and nt <= 64 below.  Whether that holds on the GPU is
+    not measured (re-tuning is open work).
     """
     if M >= 32768:
         return max(128, M // 256)    # nt = 256
@@ -149,7 +147,7 @@ def _lti_consts_device(plan: Plan, K: int, fd: str):
     """The _lti_constants tables as cached DEVICE arrays in the plan's FD
     dtype — passed into the jitted programs as arguments rather than
     embedded literals (multi-MB constant blobs per (plan, k_tile, block)
-    variant made flagship programs slow to compile; VERDICT r2 weak#9).
+    variant made flagship programs slow to compile).
 
     ensure_compile_time_eval: the first fetch may happen under an active
     trace (callers are used inside larger jitted programs); without it the
@@ -228,7 +226,7 @@ def _bf16_split_host(a):
 @functools.lru_cache(maxsize=None)
 def _lti_consts_split_device(plan: Plan, K: int):
     """Plan constants pre-split into bf16 hi/lo device pairs for the
-    "split4" MXU mode (fine_re, fine_im, GLT, P^T, Q^T — the y-dots use the
+    "split4" mode (fine_re, fine_im, GLT, P^T, Q^T — the y-dots use the
     transposed adjoints directly)."""
     fine_re, fine_im, P, Q, GLT = _lti_constants(plan, K)
     out = []
@@ -242,7 +240,7 @@ def _lti_consts_split_device(plan: Plan, K: int):
 def _split_mask(a):
     """In-trace masked bf16 hi+lo split.  Masking, NOT an astype round trip:
     XLA folds f32->bf16->f32 convert chains to identity under excess
-    precision, which would zero the lo half (see kernels.analysis_pallas).
+    precision, which would zero the lo half.
     The +0x8000 rounds the dropped half-word to nearest (carry propagates
     through the exponent), matching astype's round-to-nearest accuracy."""
     a = a.astype(jnp.float32)
@@ -254,7 +252,7 @@ def _split_mask(a):
 
 def _dot4(a, b_hi, b_lo):
     """Exact product of split operands: all four bf16 cross products,
-    accumulated in f32 — 4 single-pass MXU dots vs HIGHEST's 6."""
+    accumulated in f32 — 4 single-pass bf16 dots."""
     a_hi, a_lo = _split_mask(a)
 
     def d(x, y):
@@ -275,9 +273,9 @@ def roundtrip_block_lti(plan: Plan, state: State, samples: jnp.ndarray,
         tiles; zero deltas do not perturb the carry).
       k_tile: samples per tile (static; default: ``default_k_tile(M)``,
         which avoids the measured nt=128 XLA performance cliff).  Larger
-        tiles put more of the work on the MXU — the per-element VPU work
-        (phase rotations, cumsum, row0 trig) scales with nt = M/k_tile
-        while the MXU FLOPs are k_tile-invariant — at the cost of larger
+        tiles put more of the work in matrix products — the per-element
+        work (phase rotations, cumsum, row0 trig) scales with nt = M/k_tile
+        while the matrix-product FLOPs are k_tile-invariant — at the cost of larger
         (K, m) constant tables.
 
     Returns:
@@ -286,7 +284,7 @@ def roundtrip_block_lti(plan: Plan, state: State, samples: jnp.ndarray,
       rounding, with the identical new state.
 
     Channels fold into the contraction *row* dimension — a (C, nt, K) @
-    (K, m) dot is one MXU GEMM over C*nt rows, not C batched small matmuls
+    (K, m) dot is one GEMM over C*nt rows, not C batched small matmuls
     (which is what a vmap over the 1-channel form would compile to; the
     reference analogue is sdft_sdft_nd's flat loop, c/src/sdft/sdft.h:622).
     """
@@ -418,7 +416,7 @@ def _refresh_tables_device(plan: Plan, fd: str, S: int = 128):
     acc[i] = T_i^offset * sum_j delayline[j] * T_i^(j mod 2m).  Splitting
     j = a*S + b factors the (2m, m) phasor matrix into fineS[b, i] = T_i^b
     and coarse2[a, i] = T_i^(a*S) — two small cached tables (exact integer
-    phases) — so the refresh is two (A*S -> m) MXU dots plus A complex
+    phases) — so the refresh is two (A*S -> m) dots plus A complex
     rotations, with no per-step (2m, m) table assembly and O((S + 2m/S) * m)
     table memory at any dftsize.
     """
@@ -486,12 +484,11 @@ def _driver_segment_nd(plan: Plan, state: State, xs: jnp.ndarray,
         acc_start[b][i] = T_i^(offset + b*B) * sum_j x[b*B - 2m + j] * T_i^j
 
     — computable for ALL blocks at once from strided windows of the input
-    stream (two batched MXU dots against the cached split phase tables).
+    stream (two batched dots against the cached split phase tables).
     With the sequential spine gone, the totals GEMMs, prefix cumsums,
     synthesis GEMMs and hop-spectra demodulation are single batched ops
     over all nb*nt tiles: ~15 large XLA ops per SEGMENT instead of ~40
-    small ops per BLOCK inside a scan (the r3 driver-protocol bottleneck,
-    VERDICT r3 weak#2).  Accuracy is strictly better than the scanned
+    small ops per BLOCK inside a scan.  Accuracy is strictly better than the scanned
     chain: every block starts from an exactly-refreshed accumulator.
 
     Args / returns match one _fused_driver_nd call per block of xs
@@ -648,9 +645,7 @@ def _fused_driver_nd(plan: Plan, state: State, samples: jnp.ndarray,
     (the accumulator right after the tile's first sample, demodulated;
     |row0| = 1 cancels the rotation) — so the hopped analysis costs one
     elementwise pass over the (nt, m) c0 rows instead of a second
-    delta/GEMM/prefix pipeline (VERDICT r3 weak#2: the old chain ran
-    _hopped_nd and _roundtrip_nd back-to-back and hoped XLA CSE would
-    merge them).
+    delta/GEMM/prefix pipeline.
 
     ``sub > 1`` generalizes to DEGENERATE hops (hop < 8): tiles of
     K = hop*sub samples emit ``sub`` spectra each.  The inner hop j's
@@ -661,7 +656,7 @@ def _fused_driver_nd(plan: Plan, state: State, samples: jnp.ndarray,
 
     so 1-sample hops (the reference's founding efficiency claim,
     /root/reference/README.md:18) keep full-depth GEMMs instead of
-    (nt, 1) @ (1, m) matvecs that Mosaic/XLA pad to whole MXU tiles.
+    (nt, 1) @ (1, m) matvecs that the compiler pads to whole matrix tiles.
     """
     m = plan.dftsize
     n2 = 2 * m
@@ -829,8 +824,8 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: jnp.ndarray,
     samples through carried plan state, keep each hop's first DFT vector and
     the synthesized samples).
 
-    Dispatching one program per block loses catastrophically on hosted TPUs
-    (the per-dispatch round trip dwarfs the sub-ms compute); this runs a
+    Dispatching one program per block pays a dispatch per sub-ms block;
+    this runs a
     ``lax.scan`` over the stacked blocks so the whole stream segment is one
     dispatch + one fetch, exactly the shape of the chained benchmark
     (bench.py).  Each scan step shares one comb/delta pass between the
@@ -847,8 +842,8 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: jnp.ndarray,
         (static, default 8): tiles span sub = ceil(k_tile/hop) hops.
         Ignored for hop >= 8, where tiles are the hop itself.
       refresh_every: exactly rebuild the accumulator from the delayline
-        every N scan steps (ops.analysis.refresh_state) — two MXU matvecs
-        that zero the f32 carry drift of long streams, keeping the on-chip
+        every N scan steps (ops.analysis.refresh_state) — two matvecs
+        that zero the f32 carry drift of long streams, keeping the
         f32 path inside the reference 1e-7 gate regardless of stream
         length.  None disables.
 
@@ -862,11 +857,11 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: jnp.ndarray,
     split4 = (plan.precision.resolve().mxu == "split4"
               and plan.precision.resolve().fd == "float32")
     if hop >= 8:
-        # scan of fused single-pass blocks — measured FASTER than the
+        # scan of fused single-pass blocks — measured faster than the
         # scan-free batched segment (_driver_segment_nd) at the canonical
-        # sizes (243M vs 153M samples/s at m=1000 hop=100: the segment's
-        # O(nb*nt*m) batched temps cost more HBM traffic than the scan's
-        # op overhead; docs/PERF.md round-4 notes).  segment=True on
+        # sizes on the previous accelerator (the segment's O(nb*nt*m)
+        # batched temps cost more memory traffic than the scan's op
+        # overhead; not measured on the GPU).  segment=True on
         # roundtrip_hopped_chain selects the batched form.  k_tile is
         # unused here (tiles are the hop itself).
         consts = ((_lti_consts_split_device(plan, hop),
@@ -897,24 +892,13 @@ def roundtrip_hopped_chain(plan: Plan, state: State, xs: jnp.ndarray,
     # degenerate hops (hop < 8): the same fused body over multi-hop tiles
     # of K = hop*sub samples, each emitting ``sub`` spectra (the stepped
     # partial-totals GEMM, _stepped_consts_device) — tiles of < 8 samples
-    # would starve the GEMMs (Mosaic/XLA pad skinny contractions to whole
-    # MXU tiles).  ``k_tile`` here sets the TILE TARGET (default 8): sub =
+    # would starve the GEMMs (the compiler pads skinny contractions to
+    # whole matrix tiles).  ``k_tile`` here sets the TILE TARGET (default 8): sub =
     # ceil(k_tile/hop).
     if xs.shape[-1] % hop:
         raise ValueError(
             f"block length ({xs.shape[-1]}) must be a multiple of the "
             f"hop ({hop})")
-    if hop == 1:
-        # at hop=1 EVERY sample emits a spectrum — the O(B*m) spectra
-        # write dominates, and the fused Pallas forward kernel beats the
-        # stepped XLA body ~3x (which materializes several complex (B, m)
-        # temps through HBM).  Route to kernel-spectra + collapsed-LTI
-        # synthesis per block when the plan rides the Pallas fast path.
-        from ..kernels import pallas_supported, plan_supported
-
-        if pallas_supported() and plan_supported(plan, int(xs.shape[-1])):
-            return _chain_hop1_pallas_jit(plan, state, xs, refresh_every,
-                                          False)
     sub = driver_sub_factor(hop, k_tile or 8)
     consts = _fused_driver_consts(plan, hop, sub)
     return _chain_fused_jit(plan, state, xs, consts, hop, refresh_every,
@@ -942,43 +926,6 @@ def _chain_refresh(plan: Plan, refresh_every, body_out_state, since):
                       body_out_state)
     since = jnp.where(since >= refresh_every, 0, since)
     return st, since
-
-
-@functools.partial(jax.jit, static_argnums=(0, 3, 4))
-def _chain_hop1_pallas_jit(plan: Plan, state: State, xs,
-                           refresh_every: int | None,
-                           interpret: bool = False):
-    """hop=1 driver chain through ONE fused Pallas kernel per block
-    (forward_and_y_pallas): every sample's spectrum (which IS that hop's
-    spectrum) AND the synthesized samples from a single launch — no
-    second comb/totals pass (measured +21% over kernel-spectra +
-    collapsed-LTI synthesis at m=1000, scripts/exp_hop1.py).  The spectra
-    carry the mxu2 in-kernel cumsum class: ~7e-6 relative worst-case at
-    m=4096 on chip (vs ~3e-6 for the toepconv spectra kernel — the
-    founding claim at hop=1 is throughput; mxu3 recovers ~1.7e-6 at -18%,
-    measured rejection in scripts/exp_hop1.py)."""
-    from ..kernels import forward_and_y_pallas
-
-    def body(carry, x):
-        st, since = carry
-        if x.ndim == 1:
-            st, hd, y = forward_and_y_pallas(plan, st, x,
-                                             interpret=interpret)
-        else:
-            st, hd, y = jax.vmap(
-                lambda s, xx: forward_and_y_pallas(plan, s, xx,
-                                                   interpret=interpret)
-            )(st, x)
-        if refresh_every is None:
-            return (st, since), (hd, y)
-        if refresh_every == 1:
-            return (refresh_state_any(plan, st), since), (hd, y)
-        st, since = _chain_refresh(plan, refresh_every, st, since)
-        return (st, since), (hd, y)
-
-    (state, _), (hdfts, ys) = jax.lax.scan(
-        body, (state, jnp.zeros((), jnp.int32)), xs)
-    return state, hdfts, ys
 
 
 @functools.partial(jax.jit, static_argnums=(0, 4, 5, 6))
@@ -1013,7 +960,7 @@ def sdft_hopped(plan: Plan, state: State, samples: jnp.ndarray, hop: int):
     Uses the same prefix machinery as the collapsed round trip: with tiles of
     length ``hop``, the selected spectrum is just the demodulated+windowed
     tile-start accumulator, so the per-sample scan disappears — one
-    (nt,hop)@(hop,m) MXU matmul + O(nt*m) elementwise work, a ~hop-fold
+    (nt,hop)@(hop,m) matmul + O(nt*m) elementwise work, a ~hop-fold
     saving over materializing every spectrum.
 
     Args:

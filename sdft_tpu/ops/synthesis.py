@@ -7,9 +7,8 @@ Per output sample the reference reduces over bins
   latency <  1 : y = 2 * sum_i Re(dft[i] * polar(w, omega*i*m*latency)),
                  w = 2 / (1 - cos(omega*m*latency))
 
-For a block this is a single (M, m) @ (m,) contraction — MXU-shaped.  We
-split the complex product into real matvecs so the MXU sees plain real
-matmuls: Re(dft * t) = Re(dft)*Re(t) - Im(dft)*Im(t).
+For a block this is a single (M, m) @ (m,) contraction.  We split the
+complex product into real matvecs: Re(dft * t) = Re(dft)*Re(t) - Im(dft)*Im(t).
 """
 
 from __future__ import annotations
@@ -34,15 +33,17 @@ def isdft_block(plan: Plan, dfts: jnp.ndarray) -> jnp.ndarray:
     fd = plan.precision.fd_dtype
     tw = synthesis_twiddles(plan)  # (m,) complex, constant-folded by XLA
     re = dfts[..., 0].astype(fd)
+    # an f32 contraction without a precision may run in TF32 on the GPU
+    hi = plan.precision.mxu_precision
     if plan.latency == 1.0:
         # Purely real alternating-sign reduction (c/src/sdft/sdft.h:639-645).
-        y = jnp.einsum("...sm,m->...s", re, jnp.real(tw),
+        y = jnp.einsum("...sm,m->...s", re, jnp.real(tw), precision=hi,
                        preferred_element_type=fd)
     else:
         im = dfts[..., 1].astype(fd)
-        y = jnp.einsum("...sm,m->...s", re, jnp.real(tw),
+        y = jnp.einsum("...sm,m->...s", re, jnp.real(tw), precision=hi,
                        preferred_element_type=fd)
-        y = y - jnp.einsum("...sm,m->...s", im, jnp.imag(tw),
+        y = y - jnp.einsum("...sm,m->...s", im, jnp.imag(tw), precision=hi,
                            preferred_element_type=fd)
     y = y * jnp.asarray(plan.synthesis_weight, fd)
     return y.astype(plan.precision.td_dtype)

@@ -114,7 +114,7 @@ def fiddle_block(plan: Plan, offset: jnp.ndarray, M: int,
     so only three small tables (1, M/split and split rows) are evaluated with
     cos/sin — each exact via integer exponents mod 2m — and the full matrix
     is assembled with two complex multiplies per element (unit-modulus
-    products: ~1 ulp each).  On TPU this moves the hot loop off the VPU
+    products: ~1 ulp each).  This moves the hot loop off the elementwise units
     transcendental unit.
 
     Returns:

@@ -1,16 +1,15 @@
 """Double-word (two-float32) extended-precision analysis tier.
 
 The reference keeps a third FD precision tier above double (`long double`,
-/root/reference/c/src/sdft/sdft.h:21-37,101-125).  TPUs have no float64 at
-all, so this module reaches the f64 accuracy class ON DEVICE with
-double-word arithmetic: every value is an unevaluated sum hi + lo of two
+c/src/sdft/sdft.h:21-37,101-125).  This module reaches the f64 accuracy
+class from float32 arithmetic alone (first written for an accelerator with
+no float64 unit) with double-word arithmetic: every value is an unevaluated sum hi + lo of two
 float32s (Dekker/Knuth error-free transformations), giving ~2^-48 relative
 precision through the whole rotate -> cumsum -> demodulate -> window-conv
 pipeline.  Products are made exact by masked 12-bit mantissa splits;
 sums by TwoSum.  Only adds/subs/muls are used — XLA does not reassociate
 float arithmetic, and the splits are BITMASKS, not convert round trips
-(which XLA folds to identity under excess precision — docs/PERF.md
-round-3 note, ops.lti._split_mask).
+(which XLA folds to identity under excess precision — ops.lti._split_mask).
 
 The carry is NOT taken from ``state.accumulator`` (a plain f32, which
 would cap accuracy at ~6e-8): by the refresh identity
@@ -22,11 +21,10 @@ the accumulator is a pure function of the exactly-carried delayline, so
 every block REBUILDS it in double-word — streams of any length are
 drift-free by construction, with no change to the State pytree.
 
-This is the MXU-free accuracy tier: the per-element cost is ~20x a plain
-f32 op and nothing rides the matmul unit — any MXU contraction rounds its
-f32 accumulation at ~sqrt(K)*2^-24 per tile, which is why the fast LTI
-paths cannot reach this class (measured rejection note in docs/PERF.md
-round-5).  Select it with ``Precision(fd="float32x2")``.
+This is the matmul-free accuracy tier: the per-element cost is ~20x a
+plain f32 op and nothing rides a matrix unit — any f32 contraction rounds
+its accumulation at ~sqrt(K)*2^-24 per tile, which is why the fast LTI
+paths cannot reach this class.  Select it with ``Precision(fd="float32x2")``.
 """
 
 from __future__ import annotations

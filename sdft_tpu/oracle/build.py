@@ -1,8 +1,11 @@
 """Lazy build of the native oracle shared libraries.
 
 Compiles the native engines under sdft_tpu/native/ with the system toolchain
-on first use and caches each .so next to the source (rebuilt when the source
-is newer).  No external build-system dependency.
+on first use and caches each .so under ``native/_build/<host key>/`` (rebuilt
+when the source is newer).  The libraries are built with -march=native, so
+the key names the CPU they were built for: a tree copied to another machine
+builds its own instead of loading one that may fault there.  No external
+build-system dependency.
 
 Two engines exist so the differential triangle has three independently
 written corners (reference: test/main.py:67-79 cross-checks three
@@ -12,8 +15,10 @@ implementations): ``native`` is the C++17 integer-exponent-phase engine,
 
 from __future__ import annotations
 
+import hashlib
 import os
 import pathlib
+import platform
 import subprocess
 import threading
 
@@ -28,7 +33,19 @@ _ENGINES = {
 }
 
 SOURCE = NATIVE_DIR / _ENGINES["native"][2]
-LIBRARY = NATIVE_DIR / "_build" / "libsdft_native.so"
+
+
+def host_key() -> str:
+    """Short hash of the machine architecture and the CPU's model and flags
+    (what -march=native compiles for)."""
+    ident = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            ident += sorted({ln.strip() for ln in f
+                             if ln.startswith(("model name", "flags"))})
+    except OSError:
+        ident.append(platform.processor())
+    return hashlib.sha256("\n".join(ident).encode()).hexdigest()[:12]
 
 _lock = threading.Lock()
 
@@ -38,7 +55,7 @@ def ensure_library(engine: str = "native") -> pathlib.Path:
     env_var, default_cc, src_name, std = _ENGINES[engine]
     compiler = os.environ.get(env_var, default_cc)
     source = NATIVE_DIR / src_name
-    library = NATIVE_DIR / "_build" / f"libsdft_{engine}.so"
+    library = NATIVE_DIR / "_build" / host_key() / f"libsdft_{engine}.so"
     with _lock:
         if library.exists() and library.stat().st_mtime >= source.stat().st_mtime:
             return library

@@ -7,7 +7,6 @@ from .sharded import (
     sharded_isdft,
     sharded_roundtrip,
     sharded_roundtrip_hopped,
-    sharded_roundtrip_pallas,
     sharded_sdft,
     sharded_sdft_pallas,
     sharded_sdft_hopped,
@@ -25,7 +24,6 @@ __all__ = [
     "sharded_isdft",
     "sharded_roundtrip",
     "sharded_roundtrip_hopped",
-    "sharded_roundtrip_pallas",
     "state_sharding",
     "STATE_SPECS",
     "SAMPLE_SPEC",

@@ -1,17 +1,15 @@
 """Multi-host SPMD runtime helpers.
 
-The reference is single-process (SURVEY.md §2.4); the TPU framework scales
-to pod slices by running one process per host with `jax.distributed` and a
-global mesh whose collectives ride ICI within a slice and DCN across slices.
-Nothing else in the framework changes: the shard_map programs in
-sdft_tpu.parallel.sharded are already SPMD, so the same code runs on 1 chip
-or N hosts.
+The reference is single-process (SURVEY.md §2.4); this framework scales
+across hosts by running one process per host with `jax.distributed` and a
+global mesh (NVLink within a host, the network across hosts).  Nothing else
+in the framework changes: the shard_map programs in sdft_tpu.parallel.sharded
+are already SPMD, so the same code runs on 1 device or N hosts.
 
 Typical driver:
 
     from sdft_tpu.parallel import multihost, make_mesh, sharded_sdft
-    multihost.initialize()                 # reads cluster env (TPU pods
-                                           # auto-detect coordinator/rank)
+    multihost.initialize("host0:1234", num_processes=2, process_id=rank)
     mesh = multihost.global_mesh(time=jax.device_count() // 2, bins=2)
     ...
     state, dfts = sharded_sdft(plan, mesh, state, samples)
@@ -35,9 +33,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Initialize the jax.distributed process group (idempotent).
 
-    On Cloud TPU pods all arguments auto-detect from the metadata server;
-    pass them explicitly for other clusters (SPMD contract: every host runs
-    the same program).
+    Pass all three arguments unless the cluster environment provides them
+    to jax.distributed (SPMD contract: every host runs the same program).
 
     Must run before any other JAX call: probing the backend first (even
     ``jax.process_count()``) initializes a single-process runtime and makes

@@ -209,10 +209,13 @@ def _inverse_local(plan: Plan, dfts, *, bins_sharded: bool):
     tw = synthesis_twiddles(plan)
     tw = lax.dynamic_slice_in_dim(tw, b0, mb) if bins_sharded else tw
     re = dfts[..., 0].astype(fd)
-    y = jnp.einsum("csm,m->cs", re, jnp.real(tw), preferred_element_type=fd)
+    hi = plan.precision.mxu_precision
+    y = jnp.einsum("csm,m->cs", re, jnp.real(tw), precision=hi,
+                   preferred_element_type=fd)
     if plan.latency != 1.0:
         im = dfts[..., 1].astype(fd)
-        y = y - jnp.einsum("csm,m->cs", im, jnp.imag(tw), preferred_element_type=fd)
+        y = y - jnp.einsum("csm,m->cs", im, jnp.imag(tw), precision=hi,
+                           preferred_element_type=fd)
     y = lax.psum(y, "bins")
     y = y * jnp.asarray(plan.synthesis_weight, fd)
     return y.astype(plan.precision.td_dtype)
@@ -435,9 +438,9 @@ def _driver_block_local(plan: Plan, state: State, samples, fine_re, fine_im,
     """Per-device FUSED driver-protocol block (the sharded form of
     ops.lti._fused_driver_nd): hop-rate spectra AND synthesized samples
     from ONE comb/delta stage, one totals GEMM pipeline and one prefix
-    combine — the single-program-per-block sharded driver (VERDICT r4
-    weak #4: the old CLI --mesh path ran sharded_sdft_hopped and
-    sharded_roundtrip back-to-back, recomputing both).
+    combine — the single-program-per-block sharded driver (rather than
+    sharded_sdft_hopped and sharded_roundtrip back-to-back, recomputing
+    both).
 
     Tiles are K = hop*sub samples; the spectrum at inner hop j is
     (c0 + ptotals_j) * T^-(j*hop+1) with the INCLUSIVE stepped partial
@@ -809,32 +812,29 @@ def sharded_sdft(plan: Plan, mesh: Mesh, state: State, samples,
       mesh: ('channel', 'time', 'bins') mesh from make_mesh.
       state: batched State (leading channel axis on all leaves).
       samples: (C, M) samples.
-      use_pallas: None (default) auto-dispatches to the fused-kernel
-        program (sharded_sdft_pallas) when the mesh is bins=1, the plan
-        rides the Pallas fast path, and a TPU backend is attached —
-        mirroring api.sdft's dispatch (and its accuracy class: the kernel
-        spectra carry the documented bf16-split contraction error, same
-        as unsharded api.sdft on TPU); True forces it (raises when
-        infeasible, including off-TPU backends), False forces the XLA
-        scan program.
+      use_pallas: None (default) takes the spectra-kernel program
+        (sharded_sdft_pallas) when the mesh is bins=1 and api.sdft would
+        take the kernel (a GPU backend and a kernel plan) — the same rule
+        and the same bf16-split contraction class as api.sdft; True forces
+        it (raises off the GPU), False forces the XLA scan program.
 
     Returns:
       (new_state, dfts) with dfts packed (C, M, m, 2), sharded
       (channel, time, bins, -).
     """
-    from ..kernels import pallas_supported, plan_supported
+    from ..kernels import kernel_platform, use_kernel
 
     samples = jnp.asarray(samples)
     C, M = samples.shape
     _check_layout(plan, mesh, C, M)
     ax = dict(zip(mesh.axis_names, mesh.devices.shape))
     if use_pallas is None:
-        use_pallas = (ax["bins"] == 1 and pallas_supported()
-                      and plan_supported(plan, M))
-    elif use_pallas and not pallas_supported():
-        raise ValueError("use_pallas=True requires a TPU backend "
-                         "(Mosaic kernels); use sharded_sdft_pallas("
-                         "interpret=True) for CPU testing")
+        local = (C // ax["channel"]) * (M // ax["time"])
+        use_pallas = ax["bins"] == 1 and use_kernel(plan, local)
+    elif use_pallas and not kernel_platform():
+        raise ValueError("use_pallas=True needs a GPU backend (the spectra "
+                         "kernel is compiled for the GPU); on the CPU use "
+                         "sharded_sdft_pallas(..., interpret=True)")
     if use_pallas:
         return sharded_sdft_pallas(plan, mesh, state, samples)
     return _sharded_sdft_jit(plan, mesh, state, samples)
@@ -853,7 +853,7 @@ def sharded_roundtrip(plan: Plan, mesh: Mesh, state: State, samples,
     """Fused analysis+synthesis step (the flagship full-step program).
 
     With ``collapsed`` (default) the per-shard compute is the LTI form —
-    three MXU matmuls per device, no bin-halo exchange (guards and window
+    three matrix products per device, no bin-halo exchange (guards and window
     conv are folded into plan constants).  ``collapsed=False`` runs the
     scan-form program (per-sample spectra inside each shard); both produce
     the same samples and carry state up to rounding.
@@ -885,7 +885,7 @@ def sharded_roundtrip(plan: Plan, mesh: Mesh, state: State, samples,
 
 def _forward_local_pallas(state: State, samples, *, plan: Plan,
                           m_total: int, layout: str, spectra_dtype,
-                          interpret: bool, emit_y: bool = False):
+                          interpret: bool):
     """Per-device body for the time-sharded Pallas spectra program.
 
     Each time shard derives its block-start accumulator from the 2m-sample
@@ -918,25 +918,11 @@ def _forward_local_pallas(state: State, samples, *, plan: Plan,
         plan, State(offset=off_d, delayline=hist.astype(td),
                     accumulator=zero_acc), fd)
 
-    if emit_y:
-        # hop=1 driver protocol at scale: ONE fused kernel per shard emits
-        # every sample's spectrum AND the synthesized samples (the same
-        # forward_and_y_pallas launch as the single-chip hop=1 chain)
-        from ..kernels import forward_and_y_pallas
+    def one(st1, x):
+        return forward_block_pallas(plan, st1, x, interpret=interpret,
+                                    layout=layout, out_dtype=spectra_dtype)
 
-        def one_y(st1, x):
-            _, hd, y = forward_and_y_pallas(plan, st1, x,
-                                            interpret=interpret)
-            return hd, y
-
-        dfts, ys = jax.vmap(one_y)(st0, samples)
-    else:
-        def one(st1, x):
-            return forward_block_pallas(plan, st1, x, interpret=interpret,
-                                        layout=layout,
-                                        out_dtype=spectra_dtype)
-
-        _, dfts = jax.vmap(one)(st0, samples)
+    _, dfts = jax.vmap(one)(st0, samples)
 
     # global end state (identical on every device): the stream tail plus
     # the end accumulator from the same refresh identity
@@ -949,31 +935,25 @@ def _forward_local_pallas(state: State, samples, *, plan: Plan,
         offset=off_end,
         delayline=new_delayline.astype(td),
         accumulator=st_end.accumulator.astype(state.accumulator.dtype))
-    if emit_y:
-        return new_state, dfts, ys
     return new_state, dfts
 
 
-@functools.partial(jax.jit, static_argnums=(0, 1, 4, 5, 6, 7))
+@functools.partial(jax.jit, static_argnums=(0, 1, 4, 5, 6))
 def _sharded_sdft_pallas_jit(plan: Plan, mesh: Mesh, state, samples,
-                             layout: str, spectra_dtype, interpret: bool,
-                             emit_y: bool = False):
+                             layout: str, spectra_dtype, interpret: bool):
     m_total = samples.shape[-1]
     body = functools.partial(_forward_local_pallas, plan=plan,
                              m_total=m_total, layout=layout,
                              spectra_dtype=spectra_dtype,
-                             interpret=interpret, emit_y=emit_y)
+                             interpret=interpret)
     if layout == "planar":
         dft_spec = (P("channel", "time", None),) * 2
     else:
         dft_spec = P("channel", "time", None, None)
-    out_specs = (STATE_SPECS, dft_spec)
-    if emit_y:
-        out_specs = out_specs + (SAMPLE_SPEC,)
     return jax.shard_map(
         body, mesh=mesh,
         in_specs=(STATE_SPECS, SAMPLE_SPEC),
-        out_specs=out_specs,
+        out_specs=(STATE_SPECS, dft_spec),
         check_vma=False,
     )(state, samples)
 
@@ -986,19 +966,20 @@ def sharded_sdft_pallas(plan: Plan, mesh: Mesh, state: State, samples,
     Pallas kernel per time shard (see _forward_local_pallas).
 
     The scale path for the primary `sdft()` API: the per-sample spectra
-    write is the single-chip roofline (docs/PERF.md), and this program
+    write is the single-device roofline (PERF.md), and this program
     splits it linearly across the `time` axis — the carry comes from the
     comb history each shard already holds, so the only collectives are
     _comb_history's exchanges (size local blocks >= 2m to keep them at a
     tail ppermute + 2m all_gather).  Requires a bins=1 mesh (bin-sharded
-    spectra take the XLA scan path, `sharded_sdft`) and a Pallas-feasible
-    plan (kernels.plan_supported).
+    spectra take the XLA scan path, `sharded_sdft`), a kernel plan
+    (kernels.plan_supported) and local blocks within the kernel's int32
+    output range (spectra_triton.fits).
 
     Returns (state, dfts) — packed (C, M, m, 2), or the planar (re, im)
     pair with ``layout="planar"`` (optionally bf16 via ``spectra_dtype``),
     sharded (channel, time).
     """
-    from ..kernels import plan_supported
+    from ..kernels.spectra_triton import fits, plan_supported
 
     samples = jnp.asarray(samples)
     C, M = samples.shape
@@ -1012,43 +993,9 @@ def sharded_sdft_pallas(plan: Plan, mesh: Mesh, state: State, samples,
                          f"got {layout!r}")
     if spectra_dtype and layout != "planar":
         raise ValueError("spectra_dtype requires layout='planar'")
-    if not plan_supported(plan, M, spectra_dtype):
-        raise ValueError(f"plan {plan} outside the Pallas fast path; "
-                         "use sharded_sdft")
+    if not (plan_supported(plan)
+            and fits(plan, (C // ax["channel"]) * (M // ax["time"]))):
+        raise ValueError(f"plan {plan} at {C}x{M} samples is outside the "
+                         "spectra kernel; use sharded_sdft")
     return _sharded_sdft_pallas_jit(plan, mesh, state, samples, layout,
                                     spectra_dtype, interpret)
-
-
-def sharded_roundtrip_pallas(plan: Plan, mesh: Mesh, state: State, samples,
-                             interpret: bool = False):
-    """hop=1 driver protocol at scale: every sample's spectrum AND the
-    synthesized round trip over the mesh, ONE fused Pallas launch per time
-    shard (forward_and_y_pallas — the same kernel as the single-chip
-    hop=1 chain, ops.lti._chain_hop1_pallas_jit).
-
-    Same carry scheme as sharded_sdft_pallas: each shard rebuilds its
-    block-start accumulator from the 2m comb history it already receives
-    (refresh identity), so the only collective is _comb_history's
-    exchange — both the O(M*m) spectra write (the path's roofline) and
-    the synthesis scale linearly across the ``time`` axis.  Requires a
-    bins=1 mesh and a Pallas-feasible plan.
-
-    Returns (state, dfts, ys): dfts packed (C, M, m, 2) sharded
-    (channel, time); ys (C, M) sharded the same.  Spectra carry the
-    kernel's mxu2 in-kernel cumsum class (~7e-6 relative worst-case,
-    scripts/exp_hop1.py); the reference's 1-sample-hop efficiency claim
-    (README.md:18), multi-chip.
-    """
-    from ..kernels import plan_supported
-
-    samples = jnp.asarray(samples)
-    C, M = samples.shape
-    _check_layout(plan, mesh, C, M)
-    ax = dict(zip(mesh.axis_names, mesh.devices.shape))
-    if ax["bins"] != 1:
-        raise ValueError("sharded_roundtrip_pallas shards time/channel "
-                         "only (bins=1 meshes)")
-    if not plan_supported(plan, M):
-        raise ValueError(f"plan {plan} outside the Pallas fast path")
-    return _sharded_sdft_pallas_jit(plan, mesh, state, samples, "packed",
-                                    None, interpret, True)

@@ -1,7 +1,7 @@
 """The SDFT plan: static, hashable configuration.
 
 Unlike the reference — where the plan is a heap object owning mutable buffers
-(c/src/sdft/sdft.h:413-450 ``sdft_alloc_custom``) — the TPU-native design
+(c/src/sdft/sdft.h:413-450 ``sdft_alloc_custom``) — this design
 splits "plan" into two pieces:
 
   * ``Plan`` (this module): immutable *static* configuration (dftsize, window,

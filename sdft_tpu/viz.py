@@ -1,6 +1,6 @@
 """Spectrogram rendering helpers.
 
-The TPU-framework counterpart of the reference's plot utilities
+This framework's counterpart of the reference's plot utilities
 (reference: test/plot.py:27-68 ``spectrogram`` — dB magnitudes
 ``20*log10|dft|``, inferno colormap, time/frequency extent derived from the
 sample rate and hop size).  matplotlib is imported lazily so the compute

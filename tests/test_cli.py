@@ -79,7 +79,7 @@ def test_cli_block_mode_identical(ref, test_wav, tmp_path):
 
 def test_cli_mesh_matches_single_device(test_wav, tmp_path):
     """--mesh 1x4x2 output equals the single-device driver output on the
-    virtual 8-device mesh (the sharded driver protocol, VERDICT seam
+    virtual 8-device mesh (the sharded driver protocol,
     test/test.c:69-83)."""
     import jax
 

@@ -3,7 +3,7 @@
 Real multi-process clusters cannot run in CI; these tests exercise the
 single-process contracts and mock `jax.distributed` for the initialize()
 branching (SURVEY.md §2.4 — the reference is single-process, so this whole
-module is TPU-framework surface with no reference counterpart).
+module is this framework's own surface with no reference counterpart).
 """
 
 import os

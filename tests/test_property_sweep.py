@@ -82,24 +82,24 @@ def test_odd_shapes_vs_naive_oracle(m, window, latency, block, hop):
                                    y_ref[:n2 * bh], atol=1e-11)
 
 
+from sdft_tpu.kernels import KernelConfig  # noqa: E402
+
 PALLAS_CASES = [
-    # (m, window, roi, mode_kwargs) — shipped toepconv kernel across
-    # windows/ROI/tilings (the fold/direct/toephoist variants were retired
-    # in round 5, docs/PERF.md pruning note)
-    (136, "hann", None, dict(cumsum_mode="toepconv")),
-    (136, "blackman", (3, 130), dict(cumsum_mode="toepconv")),
-    (256, "hamming", (32, 200), dict(cumsum_mode="toepconv", tile_k=32,
-                                     super_r=2)),
-    (256, "boxcar", None, dict(cumsum_mode="toepconv", tile_k=64,
-                               super_r=1)),
-    (1000, "hann", None, dict(cumsum_mode="toepconv", tile_k=32, super_r=3)),
+    # (m, window, roi, kwargs) — the spectra kernel across windows, ROI
+    # and tilings (bin blocks narrower than m put block edges inside the
+    # window stencil)
+    (136, "hann", None, dict()),
+    (136, "blackman", (3, 130), dict()),
+    (256, "hamming", (32, 200), dict(config=KernelConfig(32, 32, 2))),
+    (256, "boxcar", None, dict(config=KernelConfig(64, 128, 1))),
+    (1000, "hann", None, dict(config=KernelConfig(32, 128, 3))),
 ]
 
 
 @pytest.mark.parametrize("m,window,roi,kw", PALLAS_CASES)
 def test_pallas_variants_odd_shapes(m, window, roi, kw):
-    """Every shipped Pallas kernel variant across odd shapes, ROI, and a
-    carried (offset != 0) stream, vs the XLA scan path (interpret mode)."""
+    """The spectra kernel across odd shapes, ROI, tilings and a carried
+    (offset != 0) stream, vs the XLA scan path (interpret mode)."""
     from sdft_tpu.kernels import forward_block_pallas
     from sdft_tpu.ops.analysis import sdft_block
 

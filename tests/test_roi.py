@@ -78,7 +78,7 @@ def test_roi_validation():
 def test_roi_sharded_matches_unsharded(axes):
     """ROI under sharded execution: shards fully outside the ROI contribute
     zeros; results equal the unsharded ROI path on every mesh factorization
-    (VERDICT r3 missing#2: ROI on the fast paths)."""
+    (ROI on the fast paths)."""
     import jax
 
     from sdft_tpu.ops.lti import roundtrip_block_lti, sdft_hopped

@@ -1,10 +1,9 @@
 """Double-word (float32x2) extended FD tier vs the float64 scan path.
 
 The reference's third FD tier is `long double`
-(/root/reference/c/src/sdft/sdft.h:21-37,101-125); TPUs have no float64,
-so sdft_tpu reaches the f64 class with two-float arithmetic
-(ops.twofloat).  Gates here run on CPU at the ~1e-13 relative class; the
-on-chip gate lives in tests/test_tpu.py.
+(c/src/sdft/sdft.h:21-37,101-125); sdft_tpu reaches the f64 class with
+two-float arithmetic from f32 alone (ops.twofloat).  Gates here run on CPU
+at the ~1e-13 relative class; the on-card gate lives in tests/test_gpu.py.
 """
 
 import numpy as np
